@@ -1,4 +1,4 @@
-"""ddo_tpu — TPU-native branch-and-bound with decision diagrams.
+"""ddo_tpu — accelerator branch-and-bound with decision diagrams.
 
 A from-scratch JAX/XLA re-design of the capabilities of xgillard/ddo
 (Rust, mounted read-only at /root/reference): solving discrete
@@ -9,7 +9,7 @@ and driving a best-first branch-and-bound over their exact cutsets.
 Where the reference walks one node at a time through hash maps and trait
 objects, this framework compiles *whole layers* as dense masked tensors
 and *whole frontier batches* as one vmapped XLA program, sharding the
-batch over a TPU mesh for multi-chip scaling.
+batch over a device mesh for multi-device scaling.
 
 The solver alias matrix mirrors solver/mod.rs:29-47.
 """

@@ -57,7 +57,8 @@ def maximize(
     last-exact-layer vs frontier cutset, `use_cache` the threshold cache,
     `dedup` the no-duplicate fringe, `width` a FixedWidth override
     (default: number of unassigned variables, lib.rs:138-146).  `batch` is
-    the TPU extension: how many subproblems to compile per superstep.
+    this framework's extension: how many subproblems to compile per
+    superstep.
     """
     from ddo_tpu.search.solver import SequentialSolver
 

@@ -131,7 +131,7 @@ def main(argv=None):
     parser.add_argument("instance", help="instance file (or n for golomb)")
     parser.add_argument("-w", "--width", type=int, default=None)
     parser.add_argument("-b", "--batch", type=int, default=4,
-                        help="frontier superstep batch (TPU lanes)")
+                        help="frontier superstep batch (device lanes)")
     parser.add_argument("-d", "--duration", type=float, default=None,
                         help="time budget in seconds")
     parser.add_argument("--cutset", choices=["lel", "frontier"], default="lel")
@@ -154,9 +154,11 @@ def main(argv=None):
 
     import jax
 
+    from ddo_tpu.utils.jax_setup import enable_compile_cache
+
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ddo_tpu_jax_cache")
+    enable_compile_cache()
 
     import ddo_tpu
     from ddo_tpu import (

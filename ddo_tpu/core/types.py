@@ -1,6 +1,6 @@
 """Host-side value types crossing every layer of the framework.
 
-TPU-native counterparts of the reference common types
+Tensorized counterparts of the reference common types
 (/root/reference/ddo/src/common.rs):
   * `Variable`/`Decision` (common.rs:33,57) collapse into plain ints: a
     solution is a dense int32[n] array `vals` (+ bool[n] `set_mask`) mapping

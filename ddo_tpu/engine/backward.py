@@ -3,17 +3,10 @@
 The reference computes local bounds (clean.rs:448-475) and thresholds
 (clean.rs:478-532) as two separate bottom-up traversals.  Both walk the
 same outbound edge planes, so this module fuses them into a single
-reverse pass with two implementations:
+reverse `lax.scan` whose per-layer child-value propagation is ONE shared
+one-hot [C, W] @ [W, 4] contraction.
 
-  * `backward_scans` — two-in-one `lax.scan` (any backend);
-  * `backward_pallas` — a Pallas TPU kernel: one grid step per layer
-    (TPU grids iterate sequentially, so VMEM scratch carries the child
-    layer's effective bounds/thresholds), the child-value propagation is
-    ONE shared one-hot [C, W] @ [W, 4] MXU contraction per layer, and
-    edge planes stream HBM -> VMEM through the BlockSpec pipeline.
-
-`fused_backward` dispatches: Pallas on TPU, scans elsewhere
-(DDO_TPU_PALLAS=0/1 overrides).  Both return, for layers 0..n-1:
+`fused_backward` returns, for layers 0..n-1:
   (vb_stack [n, W] i32, mk_stack [n, W] bool,
    th_stack [n, W] i32, hs_stack [n, W] bool)
 
@@ -24,16 +17,9 @@ Carry encodings match the engine's conventions:
 
 from __future__ import annotations
 
-import functools
-import os
-
 import jax
 import jax.numpy as jnp
-from jax.custom_batching import custom_vmap
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ddo_tpu.ops import segments as seg_ops
 from ddo_tpu.utils.num import INF, NEG_INF, sat_add, sat_sub
 
 I32 = jnp.int32
@@ -50,15 +36,12 @@ def thresh_rules(best_known, alive, val, rub, vb, cutf, exact, th, hs):
     b3 = exact & ~hs
     new_th = jnp.where(b1, th1, jnp.where(cutf, th2, jnp.where(b3, INF, th)))
     new_hs = hs | b1 | cutf | b3
-    # select on BOOL vectors via logical ops, not jnp.where: Mosaic lowers
-    # an i1-vector select through an unsupported i8->i1 truncation
     return jnp.where(alive, new_th, th), (alive & new_hs) | (~alive & hs)
 
 
 def _layer_body(W, D, best_known, vb_eff, th_eff, ec, eco, ev,
-                val_l, rub_l, cutf_l, exact_l, mask_l,
-                ep_l=None, wlp_l=None, wlth_l=None):
-    """One fused backward layer. Shared between the scan and Pallas paths.
+                val_l, rub_l, cutf_l, exact_l, mask_l, ep_l, wlp_l, wlth_l):
+    """One fused backward layer.
 
     `ep_l` [W]: per-parent theta contributions from filter-pruned children
     that never materialized (engine in-compilation filtering); `wlp_l` /
@@ -98,27 +81,27 @@ def _layer_body(W, D, best_known, vb_eff, th_eff, ec, eco, ev,
     cand = jnp.where(ch_has, sat_sub(g_th, eco), INF)
     th_l = jnp.min(cand.reshape(W, D), axis=1)
     hs_l = jnp.any(ch_has.reshape(W, D), axis=1)
-    if ep_l is not None:
-        th_l = jnp.minimum(th_l, ep_l)
-        hs_l = hs_l | (ep_l < INF)
+    th_l = jnp.minimum(th_l, ep_l)
+    hs_l = hs_l | (ep_l < INF)
     th_l = jnp.where(hs_l, th_l, INF)
     th_l, hs_l = thresh_rules(
         best_known, mask_l, val_l, rub_l, vb_l, cutf_l, exact_l, th_l, hs_l
     )
-    if wlp_l is not None:
-        use_wl = wlp_l & (wlth_l < INF)
-        th_l = jnp.where(use_wl, wlth_l, th_l)
-        hs_l = hs_l | use_wl
-        new_th_eff = jnp.where(hs_l & (mask_l | use_wl), th_l, INF)
-    else:
-        new_th_eff = jnp.where(hs_l & mask_l, th_l, INF)
+    use_wl = wlp_l & (wlth_l < INF)
+    th_l = jnp.where(use_wl, wlth_l, th_l)
+    hs_l = hs_l | use_wl
+    new_th_eff = jnp.where(hs_l & (mask_l | use_wl), th_l, INF)
     return new_vb_eff, new_th_eff, vb_l, mk_l, th_l, hs_l
 
 
-def backward_scans(E_child, E_cost, E_valid, S_val, S_rub, cutflag, S_exact,
+def fused_backward(E_child, E_cost, E_valid, S_val, S_rub, cutflag, S_exact,
                    S_mask, vb_init, th_init, best_known,
                    ep_theta=None, wl_pruned=None, wl_ptheta=None):
-    """Reverse lax.scan implementation (any backend)."""
+    """Fused local-bounds + thresholds backward pass (see module doc).
+
+    The optional planes default to "nothing pruned": `ep_theta` (per-parent
+    theta of filter-pruned children), `wl_pruned` / `wl_ptheta`
+    (within-layer dominance-pruned rows and their thresholds)."""
     n, C = E_child.shape
     W = vb_init.shape[0]
     D = C // W
@@ -145,310 +128,3 @@ def backward_scans(E_child, E_cost, E_valid, S_val, S_rub, cutflag, S_exact,
     )
     return vb, mk, th, hs
 
-
-def _layer_body_rows(W, D, bk, vb_eff, th_eff, ec, eco, ev,
-                     val_l, rub_l, cutf_l, exact_l, mask_l,
-                     ep_l, wlp_l, wlth_l):
-    """Mosaic-friendly fused backward layer: every operand is a (1, W) row
-    (edges are D rows of a (1, D, W) block) and NO reshape/squeeze is ever
-    taken — Mosaic's layout inference rejects 1D<->2D shape casts.  The
-    per-child one-hot gather is a (1, W) @ (W, W) MXU contraction with the
-    one-hot built TRANSPOSED (ohT[j, w] = [cc[w] == j]) so the candidate
-    row never needs to become a column."""
-    iota0 = jax.lax.broadcasted_iota(I32, (W, W), 0)
-    f32 = jnp.float32
-    vb_hi = (vb_eff >> 12).astype(f32)
-    vb_lo = (vb_eff & 0xFFF).astype(f32)
-    th_hi = (th_eff >> 12).astype(f32)
-    th_lo = (th_eff & 0xFFF).astype(f32)
-
-    vb_acc = jnp.full((1, W), NEG_INF, I32)
-    mk_acc = jnp.zeros((1, W), bool)
-    th_acc = jnp.full((1, W), INF, I32)
-    hs_acc = jnp.zeros((1, W), bool)
-    for d in range(D):  # static unroll: D one-hot contractions per layer
-        ecd = ec[:, d, :]
-        ecod = eco[:, d, :]
-        okd = (ev[:, d, :] != 0) & (ecd >= 0)
-        cc = jnp.clip(ecd, 0, W - 1)  # (1, W)
-        ohT = (iota0 == cc).astype(f32)  # [W, W], ohT[j, w] = cc[w]==j
-        g_vb = (
-            jnp.dot(vb_hi, ohT, preferred_element_type=f32, precision="float32").astype(I32) * 4096
-            + jnp.dot(vb_lo, ohT, preferred_element_type=f32, precision="float32").astype(I32)
-        )
-        g_th = (
-            jnp.dot(th_hi, ohT, preferred_element_type=f32, precision="float32").astype(I32) * 4096
-            + jnp.dot(th_lo, ohT, preferred_element_type=f32, precision="float32").astype(I32)
-        )
-        cm = okd & (g_vb > NEG_INF)
-        vb_acc = jnp.maximum(vb_acc, jnp.where(cm, sat_add(g_vb, ecod), NEG_INF))
-        mk_acc = mk_acc | cm
-        g_th = jnp.where(okd, g_th, INF)
-        ch = g_th < INF
-        th_acc = jnp.minimum(th_acc, jnp.where(ch, sat_sub(g_th, ecod), INF))
-        hs_acc = hs_acc | ch
-
-    vb_l = vb_acc
-    mk_l = mk_acc
-    new_vb_eff = jnp.where(mk_l, vb_l, NEG_INF)
-
-    th_l = jnp.minimum(th_acc, ep_l)
-    hs_l = hs_acc | (ep_l < INF)
-    th_l = jnp.where(hs_l, th_l, INF)
-    mask_b = mask_l != 0
-    th_l, hs_l = thresh_rules(
-        bk, mask_b, val_l, rub_l, vb_l, cutf_l != 0, exact_l != 0, th_l, hs_l
-    )
-    use_wl = (wlp_l != 0) & (wlth_l < INF)
-    th_l = jnp.where(use_wl, wlth_l, th_l)
-    hs_l = hs_l | use_wl
-    new_th_eff = jnp.where(hs_l & (mask_b | use_wl), th_l, INF)
-    mk_i = jnp.where(mk_l, 1, 0).astype(I32)
-    hs_i = jnp.where(hs_l, 1, 0).astype(I32)
-    return new_vb_eff, new_th_eff, vb_l, mk_i, th_l, hs_i
-
-
-def _pallas_kernel(W, D, ec_ref, eco_ref, ev_ref, val_ref, rub_ref,
-                   cutf_ref, exact_ref, mask_ref, ep_ref, wlp_ref, wlth_ref,
-                   vbi_ref, thi_ref, bk_ref,
-                   vb_out, mk_out, th_out, hs_out, vb_eff, th_eff):
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        vb_eff[:] = vbi_ref[:]
-        th_eff[:] = thi_ref[:]
-
-    nvb, nth, vb_l, mk_l, th_l, hs_l = _layer_body_rows(
-        W, D, bk_ref[:],
-        vb_eff[:], th_eff[:],
-        ec_ref[:], eco_ref[:], ev_ref[:],
-        val_ref[0], rub_ref[0], cutf_ref[0],
-        exact_ref[0], mask_ref[0],
-        ep_ref[0], wlp_ref[0], wlth_ref[0],
-    )
-    vb_eff[:] = nvb
-    th_eff[:] = nth
-    vb_out[0] = vb_l
-    mk_out[0] = mk_l
-    th_out[0] = th_l
-    hs_out[0] = hs_l
-
-
-def backward_pallas(E_child, E_cost, E_valid, S_val, S_rub, cutflag, S_exact,
-                    S_mask, vb_init, th_init, best_known,
-                    ep_theta=None, wl_pruned=None, wl_ptheta=None,
-                    interpret=False):
-    """Pallas TPU implementation: grid = layers (bottom-up), VMEM scratch
-    carries the child layer's effective values across grid steps."""
-    n, C = E_child.shape
-    W = vb_init.shape[0]
-    D = C // W
-    if ep_theta is None:
-        ep_theta = jnp.full((n, W), INF, E_cost.dtype)
-    if wl_pruned is None:
-        wl_pruned = jnp.zeros((n, W), bool)
-        wl_ptheta = jnp.full((n, W), INF, E_cost.dtype)
-
-    # Block shapes must fully cover their trailing two dims (the TPU
-    # lowering requires last-two block dims tile-divisible or equal to the
-    # array dims).  Edges are fed TRANSPOSED [n, D, W] so the kernel reads
-    # per-domain-slot (1, W) rows without any in-kernel reshape (Mosaic
-    # rejects 1D<->2D shape casts); node planes carry a unit middle axis.
-    rev3 = lambda i: (n - 1 - i, 0, 0)
-    edge_spec = pl.BlockSpec((1, D, W), rev3)
-    node_spec = pl.BlockSpec((1, 1, W), rev3)
-    init_spec = pl.BlockSpec((1, W), lambda i: (0, 0))
-
-    # masks cross the kernel boundary as int32 (Mosaic rejects i1 vectors)
-    e3 = lambda a: a.astype(I32).reshape(n, W, D).transpose(0, 2, 1)
-    e3c = lambda a: a.reshape(n, W, D).transpose(0, 2, 1)
-    n3 = lambda a: a.astype(I32).reshape(n, 1, W)
-    out = pl.pallas_call(
-        functools.partial(_pallas_kernel, W, D),
-        grid=(n,),
-        in_specs=[edge_spec, edge_spec, edge_spec, node_spec,
-                  node_spec, node_spec, node_spec, node_spec,
-                  node_spec, node_spec, node_spec,
-                  init_spec, init_spec, init_spec],
-        out_specs=[node_spec, node_spec, node_spec, node_spec],
-        out_shape=[
-            jax.ShapeDtypeStruct((n, 1, W), jnp.int32),
-            jax.ShapeDtypeStruct((n, 1, W), jnp.int32),
-            jax.ShapeDtypeStruct((n, 1, W), jnp.int32),
-            jax.ShapeDtypeStruct((n, 1, W), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((1, W), jnp.int32),
-            pltpu.VMEM((1, W), jnp.int32),
-        ],
-        interpret=interpret,
-    )(
-        e3c(E_child), e3c(E_cost), e3(E_valid), n3(S_val), n3(S_rub),
-        n3(cutflag), n3(S_exact), n3(S_mask),
-        n3(ep_theta), n3(wl_pruned), n3(wl_ptheta),
-        vb_init.reshape(1, W), th_init.reshape(1, W),
-        jnp.full((1, W), jnp.asarray(best_known, I32)),  # scalar as a row
-    )
-    vb, mk, th, hs = (o.reshape(n, W) for o in out)
-    return vb, mk != 0, th, hs != 0
-
-
-def _pallas_kernel_batched(W, D, ec_ref, eco_ref, ev_ref, val_ref, rub_ref,
-                           cutf_ref, exact_ref, mask_ref, ep_ref, wlp_ref,
-                           wlth_ref, vbi_ref, thi_ref, bk_ref,
-                           vb_out, mk_out, th_out, hs_out, vb_eff, th_eff):
-    i = pl.program_id(1)  # layer index within the current lane
-
-    @pl.when(i == 0)  # fresh lane: reload the terminal-layer carries
-    def _():
-        vb_eff[:] = vbi_ref[0]
-        th_eff[:] = thi_ref[0]
-
-    nvb, nth, vb_l, mk_l, th_l, hs_l = _layer_body_rows(
-        W, D, bk_ref[0],
-        vb_eff[:], th_eff[:],
-        ec_ref[0], eco_ref[0], ev_ref[0],
-        val_ref[0, 0], rub_ref[0, 0], cutf_ref[0, 0],
-        exact_ref[0, 0], mask_ref[0, 0],
-        ep_ref[0, 0], wlp_ref[0, 0], wlth_ref[0, 0],
-    )
-    vb_eff[:] = nvb
-    th_eff[:] = nth
-    vb_out[0, 0] = vb_l
-    mk_out[0, 0] = mk_l
-    th_out[0, 0] = th_l
-    hs_out[0, 0] = hs_l
-
-
-def backward_pallas_batched(E_child, E_cost, E_valid, S_val, S_rub, cutflag,
-                            S_exact, S_mask, vb_init, th_init, best_known,
-                            ep_theta, wl_pruned, wl_ptheta, interpret=False):
-    """K-lane Pallas TPU implementation: grid (K, n) — the layer dimension
-    iterates innermost (TPU grids are sequential, rightmost-fastest), so
-    the VMEM carries walk each lane bottom-up and reset at every new lane.
-    This is the batch-aware kernel VERDICT r1 #5 asked for: no reliance on
-    Pallas' generic vmap batching rule (whose inserted block dimension
-    violates the TPU (8, 128) minimum tile on (1, C) blocks)."""
-    K, n, C = E_child.shape
-    W = vb_init.shape[1]
-    D = C // W
-
-    # transposed [K, n, D, W] edge layout + unit middle axis on node
-    # planes: see backward_pallas on the TPU block-shape/reshape rules
-    edge = pl.BlockSpec((1, 1, D, W), lambda k, i: (k, n - 1 - i, 0, 0))
-    node = pl.BlockSpec((1, 1, 1, W), lambda k, i: (k, n - 1 - i, 0, 0))
-    init = pl.BlockSpec((1, 1, W), lambda k, i: (k, 0, 0))
-
-    e4 = lambda a: a.astype(I32).reshape(K, n, W, D).transpose(0, 1, 3, 2)
-    e4c = lambda a: a.reshape(K, n, W, D).transpose(0, 1, 3, 2)
-    n4 = lambda a: a.astype(I32).reshape(K, n, 1, W)
-    out = pl.pallas_call(
-        functools.partial(_pallas_kernel_batched, W, D),
-        grid=(K, n),
-        in_specs=[edge, edge, edge, node, node, node, node, node,
-                  node, node, node, init, init, init],
-        out_specs=[node, node, node, node],
-        out_shape=[
-            jax.ShapeDtypeStruct((K, n, 1, W), jnp.int32),
-            jax.ShapeDtypeStruct((K, n, 1, W), jnp.int32),
-            jax.ShapeDtypeStruct((K, n, 1, W), jnp.int32),
-            jax.ShapeDtypeStruct((K, n, 1, W), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((1, W), jnp.int32),
-            pltpu.VMEM((1, W), jnp.int32),
-        ],
-        interpret=interpret,
-    )(
-        e4c(E_child), e4c(E_cost), e4(E_valid),
-        n4(S_val), n4(S_rub), n4(cutflag), n4(S_exact), n4(S_mask),
-        n4(ep_theta), n4(wl_pruned), n4(wl_ptheta),
-        vb_init.reshape(K, 1, W), th_init.reshape(K, 1, W),
-        jnp.broadcast_to(
-            jnp.asarray(best_known, I32).reshape(K, 1, 1), (K, 1, W)
-        ),
-    )
-    vb, mk, th, hs = (o.reshape(K, n, W) for o in out)
-    return vb, mk != 0, th, hs != 0
-
-
-def _pallas_wanted(C, W):
-    """Pallas path gate: explicit opt-in (DDO_TPU_PALLAS=1) + TPU backend
-    + kernel fits VMEM ([W, W] one-hot per domain slot + (D, W) edge
-    block).
-
-    Opt-in, not default, by measurement (re-measured after the r3 engine
-    restructure): the r2 AOT-compile stall is GONE — the bench-shape
-    program (K=128, W=256, n=2000) now compiles in ~34s with the
-    pallas_call embedded (r2: >8 min; the r3 pipeline that replaced the
-    fat-payload sorts evidently removed whatever the fuser choked on).
-    But the kernel is ~6% SLOWER end-to-end than the fused reverse scan
-    at that shape (36.5M vs 38.8M exp/s) — the backward pass is not the
-    bottleneck, and the scan path fuses better with its neighbors — so
-    scan stays the default on merit, not on a compile bug."""
-    if os.environ.get("DDO_TPU_PALLAS") != "1":
-        return False
-    if W > 512 or C * W > (1 << 22):
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except RuntimeError:
-        return False
-
-
-@custom_vmap
-def _fused_backward_core(E_child, E_cost, E_valid, S_val, S_rub, cutflag,
-                         S_exact, S_mask, vb_init, th_init, best_known,
-                         ep_theta, wl_pruned, wl_ptheta):
-    n, C = E_child.shape
-    W = vb_init.shape[0]
-    if _pallas_wanted(C, W):
-        return backward_pallas(E_child, E_cost, E_valid, S_val, S_rub,
-                               cutflag, S_exact, S_mask, vb_init, th_init,
-                               best_known, ep_theta, wl_pruned, wl_ptheta)
-    return backward_scans(E_child, E_cost, E_valid, S_val, S_rub, cutflag,
-                          S_exact, S_mask, vb_init, th_init, best_known,
-                          ep_theta, wl_pruned, wl_ptheta)
-
-
-@_fused_backward_core.def_vmap
-def _fused_backward_vmap(axis_size, in_batched, *args):
-    """K-lane batching rule: route to the grid-(K, n) Pallas kernel on TPU
-    instead of Pallas' generic (tile-violating) vmap insertion."""
-    full = [
-        a if b else jnp.broadcast_to(a, (axis_size,) + jnp.shape(a))
-        for a, b in zip(args, in_batched)
-    ]
-    K, n, C = full[0].shape
-    W = full[8].shape[1]
-    if _pallas_wanted(C, W):
-        outs = backward_pallas_batched(*full)
-    else:
-        outs = jax.vmap(backward_scans)(*full)
-    return outs, (True, True, True, True)
-
-
-def fused_backward(E_child, E_cost, E_valid, S_val, S_rub, cutflag, S_exact,
-                   S_mask, vb_init, th_init, best_known,
-                   ep_theta=None, wl_pruned=None, wl_ptheta=None):
-    """Fused local-bounds + thresholds backward pass.
-
-    With DDO_TPU_PALLAS=1 on TPU, single-lane compiles use the grid-(n,)
-    Pallas kernel and K-lane (vmapped) compiles are routed through a
-    custom_vmap rule to the batch-aware grid-(K, n) kernel (both verified
-    bit-exact against the scans on v5e hardware).  The default is the
-    fused reverse `lax.scan` — see `_pallas_wanted` for the measured
-    reason (embedding the pallas_call stalls the full-program XLA
-    compile) and the gate conditions."""
-    n, C = E_child.shape
-    W = vb_init.shape[0]
-    if ep_theta is None:
-        ep_theta = jnp.full((n, W), INF, E_cost.dtype)
-    if wl_pruned is None:
-        wl_pruned = jnp.zeros((n, W), bool)
-        wl_ptheta = jnp.full((n, W), INF, E_cost.dtype)
-    return _fused_backward_core(
-        E_child, E_cost, E_valid, S_val, S_rub, cutflag, S_exact, S_mask,
-        vb_init, th_init, best_known, ep_theta, wl_pruned, wl_ptheta,
-    )

@@ -1,4 +1,4 @@
-"""The dense, batched MDD compilation engine — TPU-native re-design of the
+"""The dense, batched MDD compilation engine — accelerator re-design of the
 reference "clean" vector MDD (/root/reference/ddo/src/implementation/mdd/clean.rs).
 
 Design inversion
@@ -17,8 +17,7 @@ jitted XLA program over fixed-shape tensors:
     *traced* effective width, so width heuristics never trigger recompiles
     (replaces clean.rs:802-876);
   * edges are stored outbound, FLAT `[n, W*D]` (child slot, cost, decision
-    value, valid — the trailing dim must be the large one or TPU tile
-    padding blows the buffers up 64x): the bottom-up local-bound
+    value, valid): the bottom-up local-bound
     (clean.rs:448-475) and threshold (clean.rs:478-532) passes become
     per-layer gathers + masked reductions;
   * exactness/cutset bookkeeping (NodeFlags, node_flags.rs:48-63) becomes
@@ -57,7 +56,6 @@ from ddo_tpu.core.problem import ModelBundle, Problem
 from ddo_tpu.core.types import CompilationType, CutsetType, SubProblem
 from ddo_tpu.engine import backward as bwd
 from ddo_tpu.ops import segments as seg_ops
-from ddo_tpu.ops import sort_pallas as sort_ops
 from ddo_tpu.utils.num import INF, NEG_INF, VALUE_DTYPE, sat_add, sat_sub
 
 I32 = jnp.int32
@@ -66,43 +64,19 @@ I32 = jnp.int32
 def _scan_unroll(spec: "DDSpec") -> int:
     """Unroll factor for the forward layer scan (trace-time static).
 
-    Narrow DDs (the reference's FixedWidth(2) knapsack config,
-    knapsack/main.rs:317-337) make the per-layer candidate tensors tiny
-    (C = W*D <= 64), so a whole forward step is a handful of microseconds
-    of real work wrapped in one loop iteration of dispatch overhead — and
-    an n=2000 instance pays that overhead 2000 times per compile.
-    Unrolling the `lax.scan` body amortizes the per-iteration cost across
-    several layers while XLA fuses the concatenated bodies; at large C the
-    body is compute-bound and unrolling only slows compilation down.
-    Thresholds are measured on v5e (see ROUND4_NOTES); DDO_SCAN_UNROLL
-    overrides for A/B runs."""
-    env = __import__("os").environ.get("DDO_SCAN_UNROLL")
-    if env:
-        # defensive parse: a junk value must not abort a trace; 0 and 1
-        # both mean "no unroll" (ADVICE r4)
-        try:
-            return max(1, int(env))
-        except ValueError:
-            import warnings
-
-            warnings.warn(f"DDO_SCAN_UNROLL={env!r} is not an int; ignored")
+    Narrow DDs (C = W*D <= 64, e.g. the reference's FixedWidth(2) knapsack
+    config, knapsack/main.rs:317-337) make each layer a handful of tiny
+    kernels, and an n=2000 instance pays the scan's per-iteration cost
+    2000 times per compile.  Unrolling 8 layers per iteration amortizes
+    it: on an H100 (400 W power limit) the n=2000 generated knapsack proof
+    of chip_smoke.py (FixedWidth(2), batch 8) took 5.97 s warm at unroll 8
+    against 7.73 s at unroll 1 (medians of 4 solves each).  No measured
+    cell gains from unrolling wider DDs.  On the CPU, unrolling only
+    multiplies XLA:CPU compile time."""
     if jax.default_backend() == "cpu":
-        # CPU scans have negligible per-iteration overhead; unrolling only
-        # multiplies XLA:CPU compile time (measured 2x on the fast suite)
         return 1
     C = spec.width * spec.bundle.problem.domain_size
-    if C <= 64:
-        # measured on v5e: knapPI_1_2000 @ FixedWidth(2) warm TTO
-        # 17.4s -> 7.1s
-        return 8
-    if C <= 256:
-        # re-measured r5 back-to-back on the chip: misp K=64 W=128
-        # 2.19M -> 2.32M exp/s, tsptw 1.62M -> 1.68M.  (The r4 note
-        # claiming a 2.4M -> 1.25M regression at unroll=4 was a
-        # measurement confound: the same "regression" reproduced with
-        # unroll=1 on a cold cache and vanished on back-to-back reruns.)
-        return 4
-    return 1
+    return 8 if C <= 64 else 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,8 +134,7 @@ def _tree_to_i32mat(tree):
     an inversion spec).  bool leaves are widened, uint32 leaves bitcast —
     both lossless.  The matrix is what rides `seg_ops.take_rows_i32`: the
     whole state gathers through a sort permutation with a single shared
-    one-hot contraction instead of S payload operands through the bitonic
-    network (VERDICT r2 missing #4)."""
+    one-hot contraction instead of S payload operands through the sort."""
     leaves, treedef = jax.tree_util.tree_flatten(tree)
     blocks, shapes, dtypes = [], [], []
     for leaf in leaves:
@@ -271,8 +244,8 @@ def _forward_setup(spec: DDSpec, datas, root_state, root_value, root_depth, best
     `spec` traced.
 
     Structured as three `lax.scan`s so every per-layer array is written as a
-    stacked scan output (in-place by construction — dynamic row updates into
-    big loop-carried buffers cost a full-buffer copy per layer on TPU):
+    stacked scan output (in-place by construction, no dynamic row updates
+    into big loop-carried buffers):
       1. forward: expand/dedup/squash layer by layer (clean.rs:345-381);
       2. reverse: local bounds (clean.rs:448-475);
       3. reverse: thresholds (clean.rs:478-532).
@@ -463,22 +436,17 @@ def _forward_setup(spec: DDSpec, datas, root_state, root_value, root_depth, best
         # --- dedup: one KEY-ONLY sort, best edge first in every run -------
         # sort by (valid, key, -value, -append idx) so that the head of each
         # key-run IS the best in-edge: max value, ties to the last appended
-        # edge — the `>=` update rule of clean.rs:215-218.  TPU scatters
-        # serialize, so everything below is sort/gather/cumsum only.  NO
-        # payload operands ride the bitonic network (VERDICT r2 #2: ~20
-        # state columns through two sorts per layer were the sort-heavy
-        # families' bottleneck): every per-candidate column is gathered
-        # through `perm` afterwards with one shared one-hot MXU contraction
-        # (seg_ops.take_rows_i32).
+        # edge — the `>=` update rule of clean.rs:215-218.  Everything below
+        # is sort/gather/cumsum only, no scatter.  The wide state columns
+        # do not ride the sort: they are gathered through `perm` afterwards
+        # with one shared one-hot contraction (seg_ops.take_rows_i32).
         f_keys = v_pack(f_state)  # [C, K]
         K = f_keys.shape[1]
         inval = (~f_valid).astype(I32)
         key_ops = (inval,) + tuple(f_keys[:, k] for k in range(K)) + (-f_val, -idxs)
-        # narrow per-candidate columns ride sort-1 as PAYLOAD operands:
-        # measured on v5e at [64 lanes, C=2560], one extra sort operand is
-        # ~65us/layer while a separate dynamic [C]<-[C] gather network is
-        # ~1.5ms/layer — payload-riding wins for everything except the
-        # (wide) state matrix, which is gathered at [W]<-[C] via one-hot
+        # narrow per-candidate columns ride sort-1 as PAYLOAD operands
+        # instead of a separate [C]<-[C] gather each; the (wide) state
+        # matrix is gathered at [W]<-[C] via one-hot
         f_rank = v_rank(f_state)  # [C, R]
         R = f_rank.shape[1]
         pay = [f_dval, f_pexact.astype(I32)]
@@ -494,13 +462,10 @@ def _forward_setup(spec: DDSpec, datas, root_state, root_value, root_depth, best
         if "sort1" in _ablate:
             sorted_ops = key_ops + tuple(pay)
         else:
-            # multi_sort = lax.sort by default (measured fastest at the
-            # engine's lane counts), with the packed Pallas network
-            # available behind DDO_PALLAS_SORT for A/Bs; bit-equal either
-            # way — the -idxs key makes the order total, so unstable
-            # sorts agree across backends
-            sorted_ops = sort_ops.multi_sort(
-                key_ops + tuple(pay), num_keys=len(key_ops)
+            # unstable is safe: the -idxs key makes the order total, so
+            # every backend produces the same permutation
+            sorted_ops = jax.lax.sort(
+                key_ops + tuple(pay), num_keys=len(key_ops), is_stable=False
             )
         kv = jnp.stack(sorted_ops[1 : 1 + K], axis=1)
         val_s_raw = -sorted_ops[1 + K]
@@ -538,9 +503,8 @@ def _forward_setup(spec: DDSpec, datas, root_state, root_value, root_depth, best
         slot_bs = valid_s & skip_s  # best in-edge is a long (skip) arc
         # exactness = AND over the run's parents: no inexact member between
         # a head and its run end.  Two reverse cummins — NOT the old
-        # prefix-sum + X[run_end] lookup, whose [C, C+1] one-hot streamed
-        # ~26MB/lane/layer through the MXU (the r2 TSPTW kernel's single
-        # biggest cost at C=2560)
+        # prefix-sum + X[run_end] lookup, whose [C, C+1] one-hot is
+        # quadratic in C
         inexact = valid_s & ~pexact_s
         nx = jax.lax.cummin(jnp.where(head, idxs, C), reverse=True)
         run_end = jnp.concatenate([nx[1:], jnp.full((1,), C, I32)])  # excl.
@@ -634,7 +598,7 @@ def _forward_setup(spec: DDSpec, datas, root_state, root_value, root_depth, best
         if "sort2" in _ablate:
             sorted2 = q_keys
         else:
-            sorted2 = sort_ops.multi_sort(q_keys, num_keys=len(q_keys))
+            sorted2 = jax.lax.sort(q_keys, num_keys=len(q_keys), is_stable=False)
         so_val = -sorted2[1]
         order2 = -sorted2[-1]
         so_valid = sorted2[0] == 0
@@ -654,8 +618,7 @@ def _forward_setup(spec: DDSpec, datas, root_state, root_value, root_depth, best
         # map (code, theta, head-merge-flag) back to candidate order with
         # ONE multi-payload scatter.  This replaces four separate
         # [C]-sized gather/scatter networks (cand_slot, e_code take,
-        # cand_ptheta take, merge-mask scatter) — each ~1.5ms/layer at
-        # C=2560 on v5e — with one scan + one network.
+        # cand_ptheta take, merge-mask scatter) with one scan + one sort.
         slot_code = (
             rank_of
             + jnp.where(kept, 1 << 27, 0)
@@ -666,9 +629,8 @@ def _forward_setup(spec: DDSpec, datas, root_state, root_value, root_depth, best
         if "etake" in _ablate:
             e_code, cand_ptheta, f_mm_i = slot_code, ptheta, merge_mask.astype(I32)
         elif C * C <= seg_ops._ONEHOT_ELEMS:
-            # small C: direct one-hot maps — the segmented broadcast scan
-            # below is associative_scan-heavy and measured ~30% slower at
-            # C=512 (knapsack bench shape) than two MXU contractions
+            # small C: direct one-hot maps instead of the
+            # associative_scan-heavy segmented broadcast below
             head_pos = jax.lax.cummax(jnp.where(head, idxs, -1))
             cand_slot = seg_ops.scatter_i32(perm, head_pos, C)
             e_code = seg_ops.take_i32(slot_code, jnp.clip(cand_slot, 0, C - 1))
@@ -878,9 +840,8 @@ def _forward_setup(spec: DDSpec, datas, root_state, root_value, root_depth, best
         )
         y_layer["hic"] = has_inexact_child
 
-        # edge planes stay FLAT [C]: a stacked [n, W, D] tensor would tile-
-        # pad the trailing D to 128 on TPU (observed 64x HBM blowup); the
-        # trailing dim of the stacked buffer must be the large one.
+        # edge planes stay FLAT [C]: the trailing dim of the stacked buffer
+        # is the large one.
         y_edges = dict(
             child=e_child,
             cost=e_cost,
@@ -996,8 +957,8 @@ def finalize_kernel(spec: DDSpec, datas, scan_out, best_lb, root_depth):
     mk_n = term_mask & do_locb
 
     # fused bottom-up pass: local bounds (clean.rs:448-475) + thresholds
-    # (clean.rs:478-532) in ONE reverse sweep over the edge planes — Pallas
-    # kernel on TPU, lax.scan elsewhere (engine/backward.py).
+    # (clean.rs:478-532) in ONE reverse sweep over the edge planes
+    # (engine/backward.py).
     do_thresh = do_cutset
     best_known = jnp.maximum(best_lb, jnp.where(bx_feasible, bx_value, NEG_INF))
 
@@ -1029,7 +990,7 @@ def finalize_kernel(spec: DDSpec, datas, scan_out, best_lb, root_depth):
 
     # canonical packed keys for every node (host-side dedup/caching rides
     # these instead of re-packing states in Python).  Stored key-major
-    # [n+1, K, W] so the big W dim is trailing (TPU tile padding).
+    # [n+1, K, W] so the big W dim is trailing.
     S_keys = jnp.swapaxes(jax.vmap(v_pack)(S_state), -1, -2)
 
     # leading state-ranking column per node: the native fringe's score
@@ -1063,7 +1024,7 @@ def finalize_kernel(spec: DDSpec, datas, scan_out, best_lb, root_depth):
 
 class CutoffInterrupt(Exception):
     """Raised by chunked compilation when the Cutoff fires mid-compile —
-    the TPU analogue of `Err(Reason::CutoffOccurred)` from inside
+    the analogue of `Err(Reason::CutoffOccurred)` from inside
     `_compile` (clean.rs:352-354)."""
 
 
@@ -1091,7 +1052,7 @@ def _batch_stats(out, actives):
     """In-graph cross-lane reductions: the `pmax`/`psum` analogue of the
     reference's shared best_lb / explored counters (parallel.rs:446-454).
     Computed inside the compile jit so a sharded-lane mesh run lowers them
-    to ICI collectives and the solver reads two scalars instead of
+    to cross-device collectives and the solver reads two scalars instead of
     per-lane planes (VERDICT r2 #7)."""
     lane_best = jnp.where(
         actives & out["bx_feasible"], out["bx_value"], NEG_INF
@@ -1668,7 +1629,7 @@ class CompiledBatch(list):
     """List of per-lane `CompiledDD` views + the batch-level reductions
     computed inside the compile jit (`_batch_stats`): the solver reads two
     scalars per superstep instead of per-lane planes, and on a sharded
-    mesh the reductions ride ICI collectives (VERDICT r2 #7)."""
+    mesh the reductions ride cross-device collectives (VERDICT r2 #7)."""
 
     def __init__(self, views, global_best_dev, total_expanded_dev,
                  spec=None, planes=None, actives=None):

@@ -73,11 +73,8 @@ class Golomb(Problem):
         )
         # The window w[j] = marks[pos - j] (False for j > pos) is the
         # bit-reversed mark set logically shifted right by 32L-1-pos —
-        # a handful of lane-wise VPU ops.  The original per-candidate
-        # data-dependent gather (dist_bits[pos - jarr]) serialized on
-        # TPU and dominated the whole forward layer (measured: the step
-        # hook alone was 10ms/layer at [8, 32, 26] candidates, linear in
-        # lanes — the entire golomb family was hook-bound).
+        # a handful of lane-wise vector ops instead of a per-candidate
+        # data-dependent gather (dist_bits[pos - jarr]).
         Lb = 32 * state["marks"].shape[-1]
         mark_win = bs.shift_right_var(
             bs.reverse_bits(state["marks"]),

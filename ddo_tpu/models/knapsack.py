@@ -41,7 +41,7 @@ class Knapsack(Problem):
         ratio = -self.profit / np.maximum(self.weight, 1)
         self.order = np.argsort(ratio, kind="stable").astype(np.int32)
         # prefix sums along the order for the greedy bound; the bound's
-        # table lookups run as one-hot MXU matmuls (see KPRelax.rub), so
+        # table lookups run as one-hot matmuls (see KPRelax.rub), so
         # every table is pre-split into f32-exact halves (hi*4096 + lo)
         pw = np.concatenate([[0], np.cumsum(self.weight[self.order])])
         pp = np.concatenate([[0], np.cumsum(self.profit[self.order])])
@@ -104,12 +104,10 @@ class KPRelax(Relaxation):
         # longest order-consecutive run fitting in the capacity, then one
         # fractional item (integer floor).
         #
-        # TPU note: per-node table scans/gathers over the [n+1] prefix
-        # arrays are the kernel's hot spot and are pathological as VPU
-        # lane-dim reductions (~75us/layer measured on v5e) or dynamic
-        # gathers.  Both the searchsorted count and every table lookup are
-        # expressed as one-hot f32 matmuls instead — under the engine's
-        # layer vmap they become [W, n+1] @ [n+1] MXU contractions (~3us).
+        # Per-node table scans/gathers over the [n+1] prefix arrays are the
+        # kernel's hot spot.  Both the searchsorted count and every table
+        # lookup are expressed as one-hot f32 matmuls — under the engine's
+        # layer vmap they become [W, n+1] @ [n+1] contractions.
         # i32 exactness: tables are pre-split into 12-bit f32-exact halves.
         pw = data["prefix_w"]
         cap = state["capacity"]
@@ -117,10 +115,10 @@ class KPRelax(Relaxation):
         target = base_w + cap
         L = pw.shape[0]
         # m = (# prefix entries <= target) - 1, never < depth since cap >= 0
-        # precision pinned on EVERY one-hot dot: standalone these lower to
-        # exact VPU mat-vecs, but any future batching/vmap change can turn
-        # them into MXU contractions whose default bf16 pass rounds the
-        # 12-bit-split halves (the LCS r3 wrong-answer class; enforced by
+        # precision pinned on EVERY one-hot dot: any batching/vmap change
+        # can turn them into matrix contractions whose reduced default
+        # precision (TF32 on GPU tensor cores) rounds the 12-bit-split
+        # halves (the LCS r3 wrong-answer class; enforced by
         # tests/test_precision_guard.py)
         pred = (pw <= target).astype(jnp.float32)
         m = jnp.dot(pred, jnp.ones((L,), jnp.float32),
@@ -185,3 +183,49 @@ def read_instance(path: str) -> Knapsack:
                 profit.append(int(parts[0]))
                 weight.append(int(parts[1]))
     return Knapsack(capa, profit, weight)
+
+
+def generate(n: int, R: int, cls: int, h: int, H: int = 100, seed: int = 0) -> Knapsack:
+    """Seeded instance of one of Pisinger's knapsack classes.
+
+    D. Pisinger, "Where are the hard knapsack problems?", Computers &
+    Operations Research 32 (2005) 2271-2284, section 2 — the generator
+    behind the `knapPI_{cls}_{n}_{R}_{h}` files:
+      * class 1 (uncorrelated): p, w ~ U[1, R];
+      * class 2 (weakly correlated): w ~ U[1, R],
+        p ~ U[max(1, w - R/10), w + R/10];
+      * class 3 (strongly correlated): w ~ U[1, R], p = w + R/10;
+      * capacity c = floor(h / (H + 1) * sum(w)), instance h of H.
+
+    Assumed where the paper leaves it open: numpy's PCG64
+    (`np.random.default_rng(seed)`) replaces Pisinger's own generator, so
+    a seed does not reproduce the published files, only their class; R/10
+    is integer division; the weights are drawn first, then the profits."""
+    if cls not in (1, 2, 3):
+        raise ValueError(f"Pisinger class must be 1, 2 or 3, got {cls}")
+    if n < 1 or R < 1 or not 1 <= h <= H:
+        raise ValueError(f"need n >= 1, R >= 1 and 1 <= h <= H (n={n}, R={R}, h={h}, H={H})")
+    rng = np.random.default_rng(seed)
+    w = rng.integers(1, R + 1, n)
+    r10 = R // 10
+    if cls == 1:
+        p = rng.integers(1, R + 1, n)
+    elif cls == 2:
+        p = rng.integers(np.maximum(1, w - r10), w + r10 + 1)
+    else:
+        p = w + r10
+    capacity = int(h * int(w.sum()) // (H + 1))
+    return Knapsack(capacity, p, w)
+
+
+def dp_optimum(pb: Knapsack) -> int:
+    """Exact optimum by the textbook O(n * capacity) row DP, in numpy —
+    the plain reference the solver is checked against (it shares no code
+    with the decision-diagram engine)."""
+    best = np.zeros(pb.capacity + 1, np.int64)
+    for p, w in zip(pb.profit.tolist(), pb.weight.tolist()):
+        if w <= pb.capacity:
+            # the right side is evaluated from the previous row before the
+            # assignment, so each item is taken at most once
+            best[w:] = np.maximum(best[w:], best[: best.size - w] + p)
+    return int(best[-1])

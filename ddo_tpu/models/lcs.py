@@ -68,8 +68,8 @@ class Lcs(Problem):
             tables[i, : t.shape[0], : t.shape[1]] = t
 
         # tables are kept in f32 (all values <= L < 2^24, f32-exact):
-        # per-node lookups run as one-hot MXU contractions — XLA:TPU
-        # serializes dynamic gathers (see ops/segments.onehot_take_i32)
+        # per-node lookups run as one-hot contractions instead of dynamic
+        # gathers (see ops/segments.onehot_take_i32)
         self._data = dict(
             next=jnp.asarray(nxt, jnp.float32),
             rem=jnp.asarray(rem, jnp.float32),
@@ -90,7 +90,8 @@ class Lcs(Problem):
         is_end = d == self.n_chars
         c = jnp.clip(d, 0, self.n_chars - 1)
         # one-hot position/char lookups — precision float32 is REQUIRED:
-        # the MXU's default single-bf16-pass rounds integers > 256, which
+        # a reduced-precision default (one bf16 pass, or TF32 on GPU
+        # tensor cores) rounds integers > 256 or > 2048, which
         # silently validated impossible transitions on the length-844
         # reference instances (claimed LCS = whole first string)
         Lr = data["rem"].shape[2]
@@ -99,9 +100,9 @@ class Lcs(Problem):
         remmat = jnp.einsum("ml,mcl->mc", oh_pos, data["rem"],
                     precision="float32")  # [m, n_chars]
         # column-c selection via dynamic_slice, NOT `@ one_hot`: standalone
-        # a mat-vec stays on the exact VPU, but under the engine's (W, D)
-        # vmap it batches into an MXU contraction whose default bf16 pass
-        # rounds integers > 256 — next-position 277 rounded to 276 gave
+        # a mat-vec may be exact, but under the engine's (W, D) vmap it
+        # batches into a matrix contraction whose reduced default precision
+        # rounds large integers — next-position 277 rounded to 276 gave
         # EXACT SELF-LOOPS (pos frozen at 257..297 while value climbed to
         # the full string length on the reference instances)
         remc = jax.lax.dynamic_index_in_dim(remmat, c, 1, keepdims=False)  # [m]

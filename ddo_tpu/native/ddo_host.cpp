@@ -3,7 +3,7 @@
 // The reference's performance-critical search structures are Rust
 // (NoDupFringe: ddo/src/implementation/fringe/no_duplicate.rs,
 //  SimpleCache: ddo/src/implementation/cache/simple.rs).  This module is
-// their C++ counterpart, driving the host side of the TPU superstep:
+// their C++ counterpart, driving the host side of the device superstep:
 //  * a state-deduplicated best-first fringe ordered by (ub, value, score)
 //    with the duplicate-push merge rule (max ub, longer path wins);
 //  * a per-depth threshold cache with the monotone update and the

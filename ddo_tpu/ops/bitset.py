@@ -1,9 +1,9 @@
 """Fixed-width bitset primitives over int32 lane arrays.
 
-TPU-native replacement for the reference's `BitSet`/`Set256`/`Set64`
+Tensorized replacement for the reference's `BitSet`/`Set256`/`Set64`
 state encodings (e.g. misp/main.rs:63, tsptw/state.rs:34-56): a set over
 `n` elements is a `[ceil(n/32)]` uint32 array, so set algebra becomes
-lane-wise VPU ops and membership counting uses the hardware popcount.
+lane-wise vector ops and membership counting uses the hardware popcount.
 """
 
 from __future__ import annotations
@@ -113,7 +113,7 @@ def reverse_bits(s):
     Classic mask-swap word reversal (5 steps) + lane-order flip — pure
     vectorized lane ops, no gathers.  Combined with `shift_right_var`
     this turns data-dependent window gathers (w[j] = x[p - j]) into a
-    handful of VPU ops: w = shift_right_var(reverse_bits(x), 32L-1-p)."""
+    handful of vector ops: w = shift_right_var(reverse_bits(x), 32L-1-p)."""
     v = s.astype(U32)
     c = lambda x: jnp.asarray(x, U32)
     v = ((v >> 1) & c(0x55555555)) | ((v & c(0x55555555)) << 1)
@@ -130,8 +130,7 @@ def shift_right_var(s, t):
 
     Funnel shift over lanes with the lane offset k = t // 32 resolved by
     L+1 static selects per lane — fully vectorized (no dynamic slices or
-    gathers, which TPU would serialize per element when vmapped over
-    candidate batches)."""
+    per-element gathers when vmapped over candidate batches)."""
     L = s.shape[-1]
     k = (t // 32).astype(jnp.int32)
     r = (t % 32).astype(U32)

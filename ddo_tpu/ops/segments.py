@@ -1,9 +1,7 @@
 """Scatter-free segment primitives for the dedup pipeline.
 
-TPU XLA lowers `scatter` (and therefore `jax.ops.segment_max` /
-`.at[idx].set`) to a mostly-serial loop, which flat-lined the engine at
-~1.5M node expansions/s.  All per-layer segment aggregation is instead
-expressed over *sorted* candidate arrays with:
+All per-layer segment aggregation is expressed over *sorted* candidate
+arrays, without `scatter` (`jax.ops.segment_max`, `.at[idx].set`), using:
 
   * `jax.lax.cummax` to broadcast each run's head position down the run;
   * segmented suffix scans (flip -> forward segmented scan -> flip) so
@@ -95,9 +93,8 @@ def seg_broadcast_at_head(head, values):
     scan over (flag, values) tuples).  Positions before the first head get
     position 0's value — callers mask invalid rows anyway.
 
-    This replaces per-candidate `table[head_slot]` gathers: a dynamic
-    [C]<-[C] gather costs ~1.5ms/layer at C=2560 on v5e (TPU gathers with
-    data-dependent indices serialize), while this scan is ~0.1ms."""
+    This replaces per-candidate `table[head_slot]` gathers with
+    data-dependent indices."""
 
     def combine(a, b):
         fa, va = a[0], a[1:]
@@ -111,22 +108,19 @@ def seg_broadcast_at_head(head, values):
 
 
 def onehot_take_i32(table, idx):
-    """Exact `table[idx]` for int32 tables as one-hot f32 MXU contractions.
+    """Exact `table[idx]` for int32 tables as one-hot f32 contractions.
 
-    TPU lowers dynamic gathers with data-dependent indices to a serialized
-    loop (~35us for a [512]<-[256] gather per scan step measured on v5e);
-    the same lookup as a `[M, T] @ [T]` one-hot matmul runs on the MXU in
-    a fraction of that.  Exact for the full int32 range via a 12-bit
-    split (|v >> 12| < 2^20 and v & 0xfff < 2^12 are both f32-exact).
-    `idx` must already be clipped to [0, T).  `table` may be [T] or
-    [T, m] (row gather, one shared one-hot)."""
+    The lookup is a `[M, T] @ [T]` one-hot matmul instead of a gather
+    with data-dependent indices.  Exact for the full int32 range via a
+    12-bit split (|v >> 12| < 2^20 and v & 0xfff < 2^12 are both
+    f32-exact).  `idx` must already be clipped to [0, T).  `table` may be
+    [T] or [T, m] (row gather, one shared one-hot)."""
     T = table.shape[0]
     oh = (idx[:, None] == jax.lax.iota(jnp.int32, T)[None, :]).astype(jnp.float32)
-    # precision matters: a [M,T]@[T,m] matrix-matrix one-hot hits the MXU,
-    # whose DEFAULT precision is one bf16 pass — 12-bit split values round
-    # and the gather silently corrupts (observed on v5e).  float32 (3-pass)
-    # keeps the 20-bit hi part exact; matrix-VECTOR one-hots lower to VPU
-    # reductions and were exact either way.
+    # precision matters: at DEFAULT precision an f32 matmul may run in a
+    # reduced format (TF32 on GPU tensor cores, one bf16 pass elsewhere),
+    # which rounds the 20-bit hi part and silently corrupts the gather;
+    # "float32" keeps every split value exact.
     hi = jnp.dot(oh, (table >> 12).astype(jnp.float32),
                  precision="float32").astype(jnp.int32)
     lo = jnp.dot(oh, (table & 0xFFF).astype(jnp.float32),
@@ -136,12 +130,11 @@ def onehot_take_i32(table, idx):
 
 def onehot_scatter_i32(idx, values, size):
     """Exact `out[idx[i]] = values[i]` (idx a permutation of range(size))
-    as one-hot f32 MXU contractions.
+    as one-hot f32 contractions.
 
-    Replaces the `lax.sort((idx, values), num_keys=1)` inverse-permutation
-    idiom: a [C] sort is a ~log^2(C)-stage bitonic network on TPU, while
-    the same scatter as a `[C] @ [C, C]` one-hot matmul is one MXU pass.
-    Exact for the full int32 range (negatives included) via the 12-bit
+    Small-size replacement for the `lax.sort((idx, values), num_keys=1)`
+    inverse-permutation idiom: one `[C] @ [C, C]` one-hot matmul.  Exact
+    for the full int32 range (negatives included) via the 12-bit
     arithmetic split of `onehot_take_i32`."""
     oh = (idx[:, None] == jax.lax.iota(jnp.int32, size)[None, :]).astype(jnp.float32)
     hi = jnp.dot((values >> 12).astype(jnp.float32), oh,
@@ -152,18 +145,18 @@ def onehot_scatter_i32(idx, values, size):
 
 
 def onehot_take_bool(table, idx):
-    """`table[idx]` for bool tables via one one-hot f32 MXU contraction."""
+    """`table[idx]` for bool tables via one one-hot f32 contraction."""
     T = table.shape[0]
     oh = (idx[:, None] == jax.lax.iota(jnp.int32, T)[None, :]).astype(jnp.float32)
     return jnp.dot(oh, table.astype(jnp.float32), precision="float32") > 0.5
 
 
 # --------------------------------------------------------------------------
-# Adaptive dispatch: one-hot MXU contractions win at bench-typical sizes
-# (every table row is touched, the matmul amortizes), but the [M, T]
-# one-hot grows quadratically — at LCS-scale widths (C ~ 28k) it would be
-# a multi-GB intermediate (VERDICT r1 weak #3).  Beyond the cap we fall
-# back to native gathers / a bitonic-sort scatter, both O(C log^2 C).
+# Adaptive dispatch: below the cap the lookups are one-hot contractions;
+# the [M, T] one-hot grows quadratically — at LCS-scale widths (C ~ 28k)
+# it would be a multi-GB intermediate — so beyond the cap they fall back
+# to native gathers and a sort-based scatter.  Whether the one-hot side
+# wins on a GPU at all is not measured yet (ROADMAP, Speed).
 # --------------------------------------------------------------------------
 import os as _os
 
@@ -182,9 +175,8 @@ def take_i32(table, idx):
 def take_rows_i32(table, idx):
     """Exact int32 row gather `table[idx, :]` for a [T, m] table, adaptive.
 
-    One [M, T] one-hot is shared by all m columns (two MXU contractions
-    total), so gathering a whole stacked column block costs barely more
-    than one scalar take — the workhorse of the payload-free sort pipeline
+    One [M, T] one-hot is shared by all m columns (two contractions
+    total) — the workhorse of the payload-free sort pipeline
     (engine/mdd.py): sorts carry only keys, every per-candidate column is
     gathered through the sort permutation afterwards."""
     if table.shape[0] * idx.shape[0] <= _ONEHOT_ELEMS:
@@ -202,24 +194,19 @@ def take_bool(table, idx):
 def scatter_i32(idx, values, size):
     """Exact `out[idx[i]] = values[i]` for a permutation `idx`, adaptive.
 
-    Small sizes ride the MXU one-hot; large ones invert through one
-    bitonic sort keyed on `idx` (out[k] = value paired with idx == k)."""
+    Small sizes use the one-hot contraction; large ones invert through one
+    sort keyed on `idx` (out[k] = value paired with idx == k)."""
     if size * idx.shape[0] <= _ONEHOT_ELEMS:
         return onehot_scatter_i32(idx, values, size)
-    from ddo_tpu.ops.sort_pallas import multi_sort
-
-    _, out = multi_sort((idx, values), num_keys=1)
+    _, out = jax.lax.sort((idx, values), num_keys=1, is_stable=False)
     return out
 
 
 def scatter_multi_i32(idx, values, size):
     """`scatter_i32` for several value arrays sharing one permutation:
-    ONE inversion network (or one shared one-hot) instead of per-array
-    scatters — every extra array rides as a payload operand, which costs
-    ~65us/col at [64, 2560] on v5e vs ~1.5ms for a separate network."""
+    ONE inversion sort (or one shared one-hot) instead of per-array
+    scatters — every extra array rides as a payload operand."""
     if size * idx.shape[0] <= _ONEHOT_ELEMS:
         return tuple(onehot_scatter_i32(idx, v, size) for v in values)
-    from ddo_tpu.ops.sort_pallas import multi_sort
-
-    out = multi_sort((idx,) + tuple(values), num_keys=1)
+    out = jax.lax.sort((idx,) + tuple(values), num_keys=1, is_stable=False)
     return out[1:]

@@ -1,7 +1,7 @@
 """Multi-device frontier parallelism over a `jax.sharding.Mesh`.
 
 The reference's only parallelism is a shared-memory thread pool racing on
-a mutex-guarded fringe (parallel.rs:287-653).  The TPU-native design
+a mutex-guarded fringe (parallel.rs:287-653).  This design
 (SURVEY.md section 2.4) replaces it with *data parallelism over the
 frontier batch*: pop K subproblems, shard the K lanes across the mesh's
 `lanes` axis, compile K DDs in one collective-free forward pass, then let
@@ -12,7 +12,7 @@ incumbent, parallel.rs:446-454) when the per-lane results are combined.
   -------------------------------------+----------------------------------
   thread-private DD compile            | one lane of the vmapped kernel
   shared best_lb under a Mutex         | in-graph max over the sharded lane
-                                       | axis (mdd._batch_stats -> ICI)
+                                       | axis (mdd._batch_stats)
   Condvar starvation/termination       | host checks fringe emptiness
   per-thread upper_bounds vector       | per-lane ub, reduced with max
   work stealing / rebalancing          | per-superstep lane assignment:
@@ -95,7 +95,7 @@ class MeshCompiler(DDCompiler):
 
 def MeshSolver(bundle, mesh: Mesh = None, batch: int = None, **kw):
     """Multi-device branch-and-bound: the frontier superstep's K lanes are
-    sharded across `mesh` (default: all devices).  This is the TPU-native
+    sharded across `mesh` (default: all devices).  This is the device
     replacement for the reference's thread pool (parallel.rs:287-653):
     instead of worker threads racing on a mutex-guarded fringe, each
     superstep pops K subproblems, compiles K DDs across the mesh in one

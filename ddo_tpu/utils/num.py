@@ -5,7 +5,8 @@ The reference library (xgillard/ddo) computes all objective values with
 with `saturating_add` / `saturating_sub` everywhere (see
 /root/reference/ddo/src/implementation/mdd/clean.rs:208,364,426-428,504-511).
 
-On TPU we keep everything in int32 (int64 is emulated and slow on the VPU).
+The engine keeps everything in int32 (JAX's default integer width; int64
+needs x64 mode and doubles every buffer).
 To make `a + b` safe for any two representable values we pick the sentinels
 at +/- 2**30 - 1 so that the sum of two saturated values still fits in int32
 (2**31 - 2 < 2**31 - 1).  All additions of objective-valued quantities must

@@ -178,3 +178,68 @@ def test_in_compile_filtering_reduces_work():
     exp_off, expl_off = solve(False)
     assert exp_on < exp_off
     assert expl_on <= expl_off
+
+
+# ---------------------------------------------------------------------------
+# Seeded Pisinger instances and the DP oracle
+# ---------------------------------------------------------------------------
+from ddo_tpu.models.knapsack import dp_optimum, generate
+
+
+@pytest.mark.parametrize("cls", [1, 2, 3])
+def test_generate_is_deterministic_per_seed(cls):
+    a = generate(50, 1000, cls, 3, seed=11)
+    b = generate(50, 1000, cls, 3, seed=11)
+    c = generate(50, 1000, cls, 3, seed=12)
+    assert a.capacity == b.capacity
+    np.testing.assert_array_equal(a.profit, b.profit)
+    np.testing.assert_array_equal(a.weight, b.weight)
+    assert not np.array_equal(a.weight, c.weight)
+
+
+@pytest.mark.parametrize("cls", [1, 2, 3])
+def test_generate_follows_the_class_recipe(cls):
+    R, h, H = 1000, 7, 100
+    pb = generate(400, R, cls, h, H=H, seed=cls)
+    w, p = pb.weight, pb.profit
+    assert pb.nb_variables == 400
+    assert w.min() >= 1 and w.max() <= R
+    assert pb.capacity == (h * int(w.sum())) // (H + 1)
+    if cls == 1:
+        assert p.min() >= 1 and p.max() <= R
+    elif cls == 2:
+        assert p.min() >= 1 and np.all(np.abs(p - w) <= R // 10)
+    else:
+        np.testing.assert_array_equal(p, w + R // 10)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(cls=4), dict(n=0), dict(R=0), dict(h=0), dict(h=101),
+])
+def test_generate_rejects_bad_arguments(bad):
+    kw = dict(n=10, R=100, cls=1, h=1) | bad
+    with pytest.raises(ValueError):
+        generate(**kw)
+
+
+@pytest.mark.parametrize("cls", [1, 2, 3])
+@pytest.mark.parametrize("seed", range(6))
+def test_dp_optimum_matches_brute_force(seed, cls):
+    pb = generate(11, 100, cls, 1 + 17 * seed % 99, seed=seed)
+    assert dp_optimum(pb) == brute_force(pb)
+
+
+@pytest.mark.parametrize("cls,width", [(1, 2), (2, 3), (3, 4)])
+@pytest.mark.parametrize("kind", ["sequential", "device_loop"])
+def test_solver_proves_dp_optimum_on_generated(kind, cls, width):
+    pb = generate(40, 100, cls, 30, seed=100 + cls)
+    kw = dict(width_heu=FixedWidth(width), batch=4, cache=ddo_tpu.SimpleCache(),
+              cutset_type=ddo_tpu.FRONTIER,
+              dominance=SimpleDominanceChecker(KPDominance(), pb.nb_variables))
+    if kind == "sequential":
+        solver = ddo_tpu.SequentialSolver(bundle_for(pb), **kw)
+    else:
+        solver = ddo_tpu.DeviceLoopSolver(bundle_for(pb), chunk_steps=4, **kw)
+    completion = solver.maximize()
+    assert completion.is_exact
+    check_solution(pb, solver, dp_optimum(pb))

@@ -1,6 +1,6 @@
 """Multi-device frontier parallelism on the virtual 8-device CPU mesh.
 
-The TPU-native counterpart of the reference ParallelSolver tests
+The mesh counterpart of the reference ParallelSolver tests
 (parallel.rs:655-1338): lanes shard over a `jax.sharding.Mesh`, and the
 solve must still prove the same optima as the sequential path.
 """

@@ -1,21 +1,22 @@
-"""MXU-precision regression guard (VERDICT r3 #6).
+"""Matmul-precision regression guard (VERDICT r3 #6).
 
 The engine and the models perform integer-exact gathers and table lookups
-as one-hot f32 contractions on the MXU (ops/segments.py, models/lcs.py).
-The MXU's DEFAULT precision is a single bf16 pass: an UNPINNED
-matrix-matrix `dot_general` over integer-valued f32 data rounds values
-above 2^8 and silently corrupts the solve — the round-3 LCS wrong-answer
-class (answers 4x too large, PARITY_RESULTS_r3) was exactly this, caught
-only because the final objective was absurd.
+as one-hot f32 contractions (ops/segments.py, models/lcs.py).  At DEFAULT
+precision an f32 matmul may run in a reduced format — TF32 on GPU tensor
+cores keeps 10 mantissa bits — so an UNPINNED matrix-matrix `dot_general`
+over integer-valued f32 data rounds values above 2^11 and silently
+corrupts the solve.  The round-3 LCS wrong-answer class (answers 4x too
+large) was exactly this, caught only because the final objective was
+absurd.
 
 This guard turns the class into a CI failure: it traces the FULL engine
 compile kernel (forward scan + finalization, which inlines every model
 hook and every ops/segments helper) for one small instance of every
 problem family and asserts that EVERY `dot_general` — including those
-inside nested jaxprs (scan bodies, cond branches, pallas_call kernels) —
-carries a pinned precision.  The whole framework is integer-only, so
-there is no legitimate default-precision matmul anywhere in a compiled
-kernel; any new unpinned contraction is a bug by construction.
+inside nested jaxprs (scan bodies, cond branches) — carries a pinned
+precision.  The whole framework is integer-only, so there is no
+legitimate default-precision matmul anywhere in a compiled kernel; any
+new unpinned contraction is a bug by construction.
 
 Mutation-checked (as VERDICT r3 #6 prescribes): dropping the
 `precision="float32"` from `ops/segments.onehot_take_i32` or from
@@ -24,6 +25,7 @@ Mutation-checked (as VERDICT r3 #6 prescribes): dropping the
 """
 
 import jax
+import jax.extend
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,7 +139,7 @@ FAMILIES = [
 
 def _walk_eqns(jaxpr, visit):
     """Depth-first over every eqn incl. nested jaxprs in params (scan
-    bodies, cond branches, pjit calls, pallas_call kernels, ...)."""
+    bodies, cond branches, pjit calls, ...)."""
     for eqn in jaxpr.eqns:
         visit(eqn)
         for v in eqn.params.values():
@@ -182,7 +184,7 @@ def test_no_unpinned_dot_general(family):
     bad = _unpinned_dots(jaxpr.jaxpr)
     assert not bad, (
         f"{len(bad)} dot_general(s) without pinned precision in the "
-        f"{family} compile kernel — integer-valued f32 contractions at MXU "
-        f"default (single bf16 pass) silently round; pin "
+        f"{family} compile kernel — integer-valued f32 contractions at "
+        f"default precision (TF32 on GPU) silently round; pin "
         f"precision='float32'/HIGHEST.  First offender:\n{bad[0][:500]}"
     )
